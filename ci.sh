@@ -6,7 +6,7 @@
 #   1. import / "build" sanity
 #   2. reader (parser) tests      - analog of tests/readers
 #   3. energy + oracle tests      - analog of tests/integration/energy
-#   4. the full unit suite (moves, kernels, checkpoint, CLI, parallel)
+#   4. the full unit suite (moves, regimes, checkpoint, CLI, parallel)
 #   5. one end-to-end example through the CLI
 set -euo pipefail
 cd "$(dirname "$0")"

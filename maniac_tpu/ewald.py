@@ -34,13 +34,13 @@ class EwaldSetup:
     real_space_cutoff: float    # possibly clamped
     tolerance: float            # possibly clamped
     # Dense half-space grid (jx in [0,k1], jy in [-k2,k2], jz in [-k3,k3])
-    # laid out as a 2-D array (JzP, JxyP): rows = signed jz (sublane-padded
+    # laid out as a 2-D array (JzP, JxyP): rows = signed jz (padded to 8
     # to 8), cols = jx*Jy + jy_idx (lane-padded to 128). Modes outside the
     # reference's normalized ellipsoid and padding entries carry weight 0,
     # so the amplitude update is a pure separable outer product - two
     # static expansion matmuls + one (JzP, F)@(F, JxyP) contraction, with
     # NO gathers, one-hots over a k-list, or reshapes anywhere (the
-    # TPU-native layout for incremental structure factors).
+    # layout for incremental structure factors).
     grid2_shape: tuple          # (JzP, JxyP)
     dense_int: np.ndarray       # (JzP*JxyP, 3) int triples (0 for padding)
     dense_cart: np.ndarray      # (JzP*JxyP, 3)

@@ -59,18 +59,18 @@ class InputDeck:
     temp_K: float = 0.0
     seed: int | None = None
     ewald_tolerance: float = 0.0
-    # TPU-native extension: override the DL_POLY-derived alpha
+    # Extension: override the DL_POLY-derived alpha
     # (re-balances the real/reciprocal Ewald split; the converged
     # total is split-invariant). 0 = use the reference formula.
     ewald_alpha: float = 0.0
-    # TPU-native extension: static-framework split of the guest<->framework
+    # Extension: static-framework split of the guest<->framework
     # real-space Coulomb term (physics/fwsplit.py). "auto" enables it when
     # the system is eligible; "on"/"off" force it. fw_alpha2/fw_rcut2
     # override the automatic short-range split parameters (0 = auto).
     framework_split: str = "auto"
     fw_alpha2: float = 0.0
     fw_rcut2: float = 0.0
-    # TPU-native extension: guest<->guest real-space Coulomb truncation at
+    # Extension: guest<->guest real-space Coulomb truncation at
     # the radius where erfc(alpha r) ~ 5e-10 (the reference sums the damped
     # term over ALL pairs with no cutoff, src/energy_utils.f90:374-442; the
     # tail beyond that radius is below 1e-6 kcal/mol - DIVERGENCES.md).

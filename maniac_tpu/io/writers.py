@@ -174,7 +174,7 @@ class OutputWriter:
                     f"{c[0, TYPE_ROTATION]:12d} {c[1, TYPE_ROTATION]:12d} "
                     f"{c[0, TYPE_SWAP]:12d} {c[1, TYPE_SWAP]:12d}\n")
 
-    # --- Widom insertion diagnostic (TPU-native extension; no reference
+    # --- Widom insertion diagnostic (extension; no reference
     # analog - see mc/widom.py) ---------------------------------------------
     def write_widom(self, block: int, names, B_block, B_cum,
                     temp_K: float) -> None:
@@ -225,7 +225,7 @@ class OutputWriter:
             row += f" {float(mean_e):15.4f} {float(std_e):13.4f}"
             f.write(row + "\n")
 
-    # --- isotherm sweep (TPU-native extension; the reference needs one
+    # --- isotherm sweep (extension; the reference needs one
     # full run per fugacity, run.sh:4-96 - here one compiled program
     # carries every state point as a replica batch) ---------------------------
     def write_isotherm(self, block: int, names, fugacities, mean_n) -> None:
@@ -259,7 +259,7 @@ class OutputWriter:
                     f.write(f"{name:>9s} {f_:16.6g} {mean_n[i, j]:12.5f} "
                             f"{std_n[i, j]:12.5f}{q}\n")
 
-    # --- density profile (TPU-native extension; no reference analog) --------
+    # --- density profile (extension; no reference analog) --------
     def write_profile(self, snap: HostSnapshot, block: int, bins: int,
                       axis: str) -> None:
         """Append per-block COM histograms along one box axis (fractional

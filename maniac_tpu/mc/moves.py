@@ -16,10 +16,9 @@ computation with 0/1 weights:
 
 This keeps the per-step work identical across move types - one packed
 (old|new footprint, S) pair pass plus one separable structure-factor
-contraction, fused into a single Pallas program on TPU
-(kernels/step.py) - so vmapped replicas never diverge. Rejection needs no
-rollback: the old state is simply selected. The XLA implementation in this
-module is the CPU / float64 / triclinic oracle for those kernels.
+contraction - so vmapped replicas never diverge. Rejection needs no
+rollback: the old state is simply selected. The same code serves every
+backend, precision and box shape.
 
 The swap move is actually implemented here (the reference declares it,
 parses its probability and has its acceptance formula
@@ -112,26 +111,17 @@ def mc_step(spec: SystemSpec, state: SimState, key) -> SimState:
 
 
 def mc_step_u(spec: SystemSpec, state: SimState, u) -> SimState:
-    """One MC trial from a row of uniforms: proposal glue, the device-heavy
-    core (Pallas on TPU, XLA elsewhere), then bookkeeping."""
+    """One MC trial from a row of uniforms: proposal glue, the energy core,
+    then bookkeeping."""
     pre = _propose(spec, state, u)
-    from ..kernels import use_pair_kernel
-    if use_pair_kernel(spec):
-        # single-replica calls run the grouped core (kernels/stepg.py)
-        # with a G=1 lead axis; it serves every kernel-eligible regime
-        # (incl. the static-framework split)
-        lead = jax.tree_util.tree_map(lambda x: x[None], (state, pre))
-        core = _core_kernel_grouped(spec, lead[0], lead[1])
-        core = jax.tree_util.tree_map(lambda x: x[0], core)
-    else:
-        core = _core_xla(spec, state, pre)
+    core = _core(spec, state, pre)
     return _bookkeep(spec, state, u, pre, core)
 
 
 def _propose(spec: SystemSpec, state: SimState, u) -> dict:
     """Everything up to the energy core: move/type/molecule draws, footprint
     extraction (one-hot matmuls), proposal geometry, intra/self terms and
-    the acceptance prefactor. Returns the dict consumed by the cores and by
+    the acceptance prefactor. Returns the dict consumed by _core and by
     _bookkeep."""
     fdt = spec.dtype
     u_move = u[0]
@@ -172,8 +162,6 @@ def _propose(spec: SystemSpec, state: SimState, u) -> dict:
         t2 = t1
     t_old = t1
     t_new = jnp.where(is_swap, t2, t1)
-    # ACTIVE-pair id for the compact grouped-kernel LJ tables
-    pid_act = i1 * spec.n_active + jnp.where(is_swap, i2, i1)
 
     n_old_count = state.n_mol[t_old]
     n_new_count = state.n_mol[t_new]
@@ -213,8 +201,9 @@ def _propose(spec: SystemSpec, state: SimState, u) -> dict:
 
     # footprint extraction via one-hot matmuls in pos's NATIVE layout:
     # per-replica dynamic slices lower to gathers whose layout constraint
-    # forces XLA to re-lay-out the whole (B, 3, S) array every step
-    # (profiled at ~40% of the step)
+    # can force XLA to re-lay-out the whole (B, 3, S) array every step.
+    # Positions flow through these dots, so they need full f32 products
+    # (the "highest" pin in maniac_tpu/__init__.py)
     a_iota = jnp.arange(A_act, dtype=jnp.int32)
     # with the framework split, moving molecules live only in the guest
     # column suffix - the one-hot build and read shrink accordingly
@@ -305,37 +294,14 @@ def _propose(spec: SystemSpec, state: SimState, u) -> dict:
                             no / (spec.type_activity[t_old] * V), 1.0)
     gate = valid & (~cap_blocked)
 
-    # static-framework window block starts (kernels/stepg.py): the side's
-    # COM along the sort axis determines which contiguous run of the
-    # ghost-sorted framework table covers its cutoff sphere
-    if spec.fw_split:
-        nb_tot = spec.fw_SG // 128
-        bm = spec.fw_blockmax
-
-        def wstart(z0, rcw, W):
-            st = jnp.sum((bm < z0 - rcw).astype(jnp.int32))
-            return jnp.clip(st, 0, nb_tot - W // 128)
-
-        z_old = com_old[spec.fw_axis]
-        z_new = com_new[spec.fw_axis]
-        fw_starts = jnp.stack([
-            wstart(z_old, spec.fw_rcw_lj, spec.fw_WL),
-            wstart(z_new, spec.fw_rcw_lj, spec.fw_WL),
-            wstart(z_old, spec.fw_rcw_c, spec.fw_WC),
-            wstart(z_new, spec.fw_rcw_c, spec.fw_WC)])
-    else:
-        fw_starts = jnp.zeros(4, jnp.int32)
-
     m2 = jnp.stack([mask_old & w_old, mask_new & w_new])
     return dict(
-        fw_starts=fw_starts,
         u_acc=u_acc, insert_like=insert_like, remove_like=remove_like,
         w_old=w_old, w_new=w_new, valid=valid, cap_blocked=cap_blocked,
         gate=gate, move=move, t_old=t_old, t_new=t_new,
         A_old=A_old, A_new=A_new, mol_slot_old=mol_slot_old,
         slot_new=slot_new, m_iota=m_iota,
         site_start_old=site_start_old, site_start_new=site_start_new,
-        pid_act=pid_act,
         ex_a=ex_a, ex_b=ex_b, P_old=P_old, P_new=P_new, q_old=q_old,
         q_new=q_new, cls_old=cls_old, cls_new=cls_new, mask_old=mask_old,
         mask_new=mask_new, m2=m2, last_cols=last_cols, com_new=com_new,
@@ -344,89 +310,9 @@ def _propose(spec: SystemSpec, state: SimState, u) -> dict:
         e_recip_old=e_recip_old, pref=pref)
 
 
-def mc_step_group(spec: SystemSpec, states_g: SimState, u_g) -> SimState:
-    """One MC trial for G replicas with the grouped row-compacted kernel
-    (kernels/stepg.py): proposal and bookkeeping stay per-replica (vmapped);
-    the device-heavy core batches G replicas per Pallas program so the LJ
-    pass touches only eps-active footprint rows and the Coulomb pass only
-    charged rows."""
-    pre = jax.vmap(lambda st, uu: _propose(spec, st, uu))(states_g, u_g)
-    core = _core_kernel_grouped(spec, states_g, pre)
-    return jax.vmap(lambda st, uu, p, c: _bookkeep(spec, st, uu, p, c))(
-        states_g, u_g, pre, core)
-
-
-def _core_kernel_grouped(spec: SystemSpec, states_g: SimState,
-                         pre: dict) -> dict:
-    from ..kernels.stepg import mc_step_core_grouped
-    fdt = spec.dtype
-    G = pre["t_old"].shape[0]
-    A_act = spec.A_act
-    Lmax, Qmax = spec.Lmax, spec.Qmax
-    m2f = pre["m2"].astype(fdt)                        # (G, 2, A_act)
-
-    sel_lj_o = spec.lj_sel[pre["t_old"]]               # (G, Lmax, A_act)
-    sel_lj_n = spec.lj_sel[pre["t_new"]]
-    sel_q_o = spec.q_sel[pre["t_old"]]                 # (G, Qmax, A_act)
-    sel_q_n = spec.q_sel[pre["t_new"]]
-
-    P_lj = jnp.concatenate(
-        [jnp.einsum("gla,gad->gld", sel_lj_o, pre["P_old"]),
-         jnp.einsum("gla,gad->gld", sel_lj_n, pre["P_new"])], axis=1)
-    P_q = jnp.concatenate(
-        [jnp.einsum("gqa,gad->gqd", sel_q_o, pre["P_old"]),
-         jnp.einsum("gqa,gad->gqd", sel_q_n, pre["P_new"])], axis=1)
-    ljw = jnp.concatenate(
-        [jnp.einsum("gla,ga->gl", sel_lj_o, m2f[:, 0]),
-         jnp.einsum("gla,ga->gl", sel_lj_n, m2f[:, 1])], axis=1)  # (G, FL)
-    q_o = jnp.einsum("gqa,ga->gq", sel_q_o, pre["q_old"] * m2f[:, 0])
-    q_n = jnp.einsum("gqa,ga->gq", sel_q_n, pre["q_new"] * m2f[:, 1])
-    qw = jnp.concatenate([q_o, q_n], axis=1)           # (G, FQ)
-    wk = jnp.concatenate([-q_o, q_n], axis=1)
-
-    newcols = pre["P_new"].transpose(2, 0, 1).reshape(3, G * A_act)
-    lastcols = pre["last_cols"].transpose(1, 0, 2).reshape(3, G * A_act)
-
-    # number of 128-col guest chunks intersecting any live molecule (the
-    # kernel's guest pair loop bound): per-type live ends, max over the
-    # group. Types outside the frozen prefix are covered whether active
-    # (mutable prefix) or inactive (constant population).
-    gb = spec.guest_base if spec.fw_split else 0
-    live_end = jnp.zeros((), jnp.int32)
-    for r in range(spec.R):
-        base_r = spec.site_base_list[r] - gb
-        if base_r < 0:
-            continue  # frozen prefix handled by the framework tables
-        end_r = base_r + jnp.max(states_g.n_mol[:, r]) * spec.A_list[r]
-        live_end = jnp.maximum(live_end, end_r.astype(jnp.int32))
-    n_live = jnp.broadcast_to((live_end + 127) // 128, (G,))[:, None]
-
-    iscal = jnp.concatenate([
-        jnp.stack([pre["ex_a"], pre["ex_b"], pre["pid_act"],
-                   pre["site_start_new"], pre["site_start_old"],
-                   pre["A_new"], pre["A_old"],
-                   pre["w_new"].astype(jnp.int32),
-                   pre["remove_like"].astype(jnp.int32)], axis=1),
-        states_g.n_mol.astype(jnp.int32),
-        pre["fw_starts"], n_live], axis=1).astype(jnp.int32)
-    fscal = jnp.stack([
-        pre["s_old"] + pre["i_old"], pre["s_new"] + pre["i_new"],
-        pre["e_recip_old"], pre["pref"], pre["u_acc"],
-        jnp.where(pre["gate"], 1.0, 0.0),
-        jnp.zeros((G,), fdt), jnp.zeros((G,), fdt)], axis=1).astype(fdt)
-
-    amp_re, amp_im, pos, flags = mc_step_core_grouped(
-        spec, states_g.pos, states_g.amp_re, states_g.amp_im,
-        iscal, fscal, P_lj, ljw, P_q, qw, wk, newcols, lastcols)
-    return dict(pos=pos, amp_re=amp_re, amp_im=amp_im,
-                acc=flags[:, 0] > 0.5, accf=flags[:, 0],
-                e_recip_new=flags[:, 1], delta_e=flags[:, 2],
-                e_lj=jnp.stack([flags[:, 3], flags[:, 4]], axis=1),
-                e_coul=jnp.stack([flags[:, 5], flags[:, 6]], axis=1))
-
-
-def _core_xla(spec: SystemSpec, state: SimState, pre: dict) -> dict:
-    """Pure-XLA core: the CPU / float64 / triclinic oracle path."""
+def _core(spec: SystemSpec, state: SimState, pre: dict) -> dict:
+    """Energy core: footprint pair pass, structure-factor delta, Metropolis
+    test and the position/amplitude update."""
     fdt = spec.dtype
     P = jnp.stack([pre["P_old"], pre["P_new"]])
     q2 = jnp.stack([pre["q_old"], pre["q_new"]])
@@ -450,11 +336,10 @@ def _core_xla(spec: SystemSpec, state: SimState, pre: dict) -> dict:
     accf = acc.astype(fdt)
 
     # ---- state update (functional; reject = keep old) --------------------
-    # All writes are pure arithmetic selects: batched dynamic_update_slice /
-    # .at[] scatters lower to TPU scatters that measured ~30x slower than
-    # the whole energy kernel, and (S, A_act) one-hot matmuls materialize
-    # (B, S, A_act) temporaries - unrolled per-row selects fuse into one
-    # elementwise pass.
+    # All writes are pure arithmetic selects: (S, A_act) one-hot matmuls
+    # would materialize (B, S, A_act) temporaries, while unrolled per-row
+    # selects fuse into one elementwise pass over (B, 3, S) and keep the
+    # write path free of per-replica scatters.
     s_idx = jnp.arange(spec.S, dtype=jnp.int32)
     rel_new = s_idx - pre["site_start_new"]
     rel_old = s_idx - pre["site_start_old"]

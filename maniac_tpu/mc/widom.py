@@ -1,6 +1,6 @@
 """Widom test-particle insertion: excess chemical potential diagnostic.
 
-The reference has no Widom analog; this is a TPU-native extension for
+The reference has no Widom analog; this is an extension for
 GCMC users (enable with ``--widom N``). Each trial evaluates the energy
 of a GHOST insertion - the exact "new side" of the engine's unified
 insertion move (mc/moves.py ``_core_xla``; reference insertion
@@ -19,7 +19,7 @@ Averaged over GCMC configurations this is the standard fluctuating-N
 Widom estimator; it doubles as a Henry-regime adsorption probe
 (K_H proportional to B at low loading). Runs on the plain XLA energy
 path once per block per reported replica - a handful of
-``pair_energy_footprint`` calls, nowhere near the hot kernels - and
+``pair_energy_footprint`` calls, outside the block program - and
 draws its randomness from a ``fold_in`` of the replica key, so enabling
 it never perturbs trajectories.
 """

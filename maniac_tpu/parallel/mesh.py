@@ -5,11 +5,11 @@ scan; the only collectives are diagnostic reductions (isotherm averages).
 So the multi-chip design is: shard the replica axis of the batched SimState
 over the mesh ('dp'), jit the same vmapped block, and let XLA partition -
 the per-replica program is identical, so the partitioned program runs with
-zero ICI traffic in steady state. Cross-replica observables use jnp means
-(lowered to psum/all-reduce over ICI).
+zero inter-device traffic in steady state. Cross-replica observables use
+jnp means (lowered to all-reduces over the mesh).
 
 The reference has no parallelism of any kind (SURVEY.md section 2.18); this
-module is the TPU-native analog mandated there.
+module is the analog mandated there.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ from .replicas import run_block_replicated
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "dp") -> Mesh:
+    """A 1-D replica mesh over the first n_devices devices (the chains
+    are independent, so the mesh follows the replica axis alone)."""
     devices = np.asarray(jax.devices())
     if n_devices is not None:
         devices = devices[:n_devices]

@@ -48,10 +48,8 @@ def tab_lookup(table, dx, r):
     (src/tabulated_utils.f90:92-117): r <= 0 returns f[0], r beyond the
     grid returns 0, otherwise lerp between the bracketing grid points.
 
-    Tabulated mode is XLA-path only (kernels/__init__.py gates on
-    spec.use_table): the per-pair table gather is exactly the access
-    pattern the TPU step kernels are designed to avoid, so on TPU this is
-    an anti-optimization kept for reference parity, not speed."""
+    The per-pair table gather is kept for reference parity, not speed:
+    the direct formulas are cheaper on every backend."""
     n = table.shape[0] - 1
     x = r / dx
     i = jnp.clip(jnp.floor(x).astype(jnp.int32), 0, n - 1)
@@ -116,7 +114,7 @@ def pair_energy_footprint(spec: SystemSpec, others_pos, others_mask,
     # static-framework split (physics/fwsplit.py) frozen columns instead get
     # the short-ranged erfc(alpha2 r)/r (cut at rcut2) and the far-field
     # grid term D(r) per footprint atom - same total to the measured split
-    # accuracy, identical across the XLA and Pallas paths by construction.
+    # accuracy, identical in the per-move and full-recompute paths.
     qq = mov_q[:, :, None] * spec.site_q[None, None, :]
     if spec.use_table:
         # tabulated mode: the table returns 0 beyond the grid, so Coulomb
@@ -173,7 +171,7 @@ def intra_energy(spec: SystemSpec, pos, q, mask):
 def footprint_phases(spec: SystemSpec, pos):
     """theta(k) = k . r for footprint positions; pos (..., A, 3) -> (..., A, K).
 
-    One MXU matmul replaces the reference's cached per-atom 1-D phase-factor
+    One matmul replaces the reference's cached per-atom 1-D phase-factor
     tables and their save/restore copies (src/ewald_phase.f90:90-183)."""
     return pos @ spec.k_cart.T
 
@@ -228,10 +226,9 @@ def _axis_phase_tables(spec: SystemSpec, theta, kmax_xyz=None):
 def _separable_amp(spec: SystemSpec, theta, w, grid=None):
     """A[jz, jxy] = sum_n w_n e^{i(jx tx + jy ty + jz tz)} on the 2-D dense
     grid (JzP, JxyP). theta: (N,3), w: (N,). Two static expansion matmuls
-    plus one (JzP, N)@(N, JxyP) contraction on the MXU - no gathers,
-    no one-hot k-selectors, no (N, K) transcendentals, and (critically for
-    the Pallas step kernel, which inlines the same computation) no
-    reshapes or transposed layouts anywhere.
+    plus one (JzP, N)@(N, JxyP) contraction - no gathers, no one-hot
+    k-selectors, no (N, K) transcendentals, and no reshapes or transposed
+    layouts anywhere.
 
     grid: optional (kmax_xyz, ex_sel, ey_sel, JzP) overriding the main
     k-grid - used for the static-framework far-field grid (fwsplit)."""
@@ -280,9 +277,9 @@ def amp_delta(spec: SystemSpec, pos, q, mask, signs):
     src/monte_carlo_utils.f90:308 - a sign/identity bug we do not
     replicate).
 
-    TPU-first evaluation: the phase factor is separable, so the dense-grid
+    Separable evaluation: the phase factor is separable, so the dense-grid
     delta is an outer product of per-axis power tables contracted over the
-    footprint atoms - O(A * Jx*Jy*Jz) MXU FLOPs, ~6 transcendentals per
+    footprint atoms - O(A * Jx*Jy*Jz) matmul FLOPs, ~6 transcendentals per
     atom, zero k-list gathers (see _separable_amp)."""
     B, A = q.shape
     theta = (pos @ spec.two_pi_Hinv.T).reshape(B * A, 3)
@@ -312,10 +309,11 @@ def recip_energy_delta(spec: SystemSpec, amp_re, amp_im, d_re, d_im):
 # ---------------------------------------------------------------------------
 
 def _chunk_for(S: int) -> int:
-    """Site-axis chunk for full recomputes: the largest divisor of S up to
-    1024 that keeps sublane alignment (multiple of 8). Bigger chunks =
-    fewer, larger MXU contractions in full_amplitudes; the chunk is a
-    contraction dimension so any 8-multiple works."""
+    """Site-axis chunk for full recomputes: the largest multiple of 8 up
+    to 1024 that divides S. Bigger chunks = fewer, larger contractions in
+    full_amplitudes (and larger (chunk, JxyP) temporaries, which
+    mc/driver.resync_bytes_per_replica counts); the chunk is a
+    contraction dimension so any divisor works."""
     best = 8
     for c in range(8, 1025, 8):
         if S % c == 0:
@@ -325,7 +323,7 @@ def _chunk_for(S: int) -> int:
 
 def full_amplitudes(spec: SystemSpec, pos, active):
     """A(k) = sum_s q_s e^{i k.r_s} over all active sites on the dense grid,
-    chunked over S (separable per-axis tables + MXU contraction per chunk -
+    chunked over S (separable per-axis tables + one contraction per chunk -
     no (S, K) phase matrix is ever materialized).
 
     With the static-framework split the frozen prefix contributes a

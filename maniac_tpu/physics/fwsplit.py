@@ -20,15 +20,15 @@ lattice-summed over the static framework, is a periodic harmonic field
 
 whose Fourier coefficients decay like e^{-k^2/4a2^2} and are PRECOMPUTED
 here once (the framework structure factor A_fw is constant). Per move the
-engine evaluates the short part over a small spatial window of a
-sort-axis-ordered, ghost-padded framework table, and D(r) at the footprint
-atoms with the same separable-phase MXU machinery as the main dense k-grid.
+engine evaluates the short part (cut at rcut2) and D(r) at the footprint
+atoms with the same separable-phase matmul machinery as the main dense
+k-grid.
 
 Because both the short-pass cutoff and the D-series are part of the SPEC,
-every path (XLA oracle, Pallas kernels, full recompute) computes the SAME
-split total, so the bookkeeping==recompute and kernel==XLA invariants hold
-exactly; the split-vs-plain difference is a bounded numerical error
-(measured in tests/test_fwsplit.py, target <= 1e-6 kcal/mol per move).
+the per-move path and the full recompute compute the SAME split total, so
+the bookkeeping==recompute invariant holds exactly; the split-vs-plain
+difference is a bounded numerical error (measured in tests/test_fwsplit.py,
+target <= 1e-6 kcal/mol per move).
 
 The min-image real-space sum equals the full lattice sum here because the
 difference kernel is negligible at L/2 (erfc(a L/2) < 1e-18 on any box that
@@ -44,12 +44,11 @@ import numpy as np
 from ..constants import COULOMB_K, ERFC_DECAY as _ERFC_DECAY, PI, TWOPI
 #: far-field series tolerance default: coefficients cut at e^{-p^2}.
 #: MANIAC_FW_TOL2 overrides at build time (read in build_fwsplit: the
-#: far packed dot contracts over ~kmax2_y*kmax2_z modes, so cost scales
+#: far-field contraction runs over ~kmax2_y*kmax2_z modes, so cost scales
 #: with ln(1/tol); the split-error bar is 1e-6 kcal/mol per move,
-#: tests/test_fwsplit.py, and the measured error headroom vs this
-#: tolerance is recorded in docs/performance.md)
+#: tests/test_fwsplit.py)
 _TOL2 = 1e-7
-#: extra window slack for f32 COM rounding and block quantization
+#: slack on the eligibility band for f32 COM rounding
 _SLACK = 0.75
 
 
@@ -60,17 +59,6 @@ class FwSplitSetup:
     # frozen-prefix layout
     S_frozen: int = 0
     guest_base: int = 0
-    axis: int = 2
-    # ghost framework tables (sorted along `axis`, periodic images padded)
-    SG: int = 0
-    pq_g: np.ndarray | None = None      # (4, SG): x, y, z, q rows
-    eps_g: np.ndarray | None = None     # (R*R*8, SG) grouped-LJ-row layout
-    sig2_g: np.ndarray | None = None    # (R*R*8, SG)
-    blockmax: np.ndarray | None = None  # (SG//128,) max sort-coord per block
-    WL: int = 0                         # LJ window width (cols)
-    WC: int = 0                         # Coulomb window width (cols)
-    rcw_lj: float = 0.0                 # LJ half-window (A)
-    rcw_c: float = 0.0                  # Coulomb half-window (A)
     # split parameters
     alpha2: float = 0.0
     rcut2: float = 0.0
@@ -93,20 +81,16 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _amps_on_grid(phase, q, kmaxs, shape, yb: int = 0):
+def _amps_on_grid(phase, q, kmaxs, shape):
     """sum_s q_s e^{i 2 pi n.frac_s} on a dense half-space grid laid out
-    (JzP, JxyP) with cols jx*JyB + jy (JyB=Jy: the ewald.py convention;
-    yb > Jy: jx-blocks padded to yb cols with dead modes - the far grid
-    uses yb=round_up(Jy,8) so the kernel can slice per-jx sublane blocks).
+    (JzP, JxyP) with cols jx*Jy + jy (the ewald.py convention).
     phase: (N, 3) complex e^{2 pi i frac}; returns (re, im) f64 arrays."""
     kxm, kym, kzm = kmaxs
     Jx, Jy, Jz = kxm + 1, 2 * kym + 1, 2 * kzm + 1
-    JyB = max(yb, Jy)
-    Jxy = Jx * JyB
+    Jxy = Jx * Jy
     JzP, JxyP = shape
     px = phase[:, 0][:, None] ** np.arange(Jx)[None, :]
-    py = np.zeros((q.size, JyB), dtype=complex)
-    py[:, :Jy] = phase[:, 1][:, None] ** (np.arange(Jy)[None, :] - kym)
+    py = phase[:, 1][:, None] ** (np.arange(Jy)[None, :] - kym)
     pz = phase[:, 2][:, None] ** (np.arange(Jz)[None, :] - kzm)
     a_xy = np.einsum("sx,sy->sxy", px, py).reshape(q.size, Jxy)
     A = pz.T @ (q[:, None] * a_xy)                     # (Jz, Jxy) complex
@@ -118,9 +102,7 @@ def _amps_on_grid(phase, q, kmaxs, shape, yb: int = 0):
 def build_fwsplit(box, alpha: float, cutoff: float, *,
                   kmax_xyz, amp_shape,
                   R: int, active_list, A_list, cap_list, n_mol_init,
-                  type_site_base, site_q, site_cls, pos0, eps_cls, sig_cls,
-                  class_base, lj_idx, Lmax: int, active_ids,
-                  mol_radius: float,
+                  type_site_base, site_q, pos0, mol_radius: float,
                   enabled: str = "auto", alpha2: float = 0.0,
                   rcut2: float = 0.0) -> FwSplitSetup:
     """Build the static-framework split tables (host-side numpy).
@@ -151,7 +133,7 @@ def build_fwsplit(box, alpha: float, cutoff: float, *,
     guest_base = _round_up(S_frozen, 128)
 
     # live frozen site columns (dead capacity slots of empty inactive types
-    # are excluded here once and for all - the ghost table IS the live set)
+    # are excluded here once and for all)
     cols = []
     for r in frozen_types:
         for mi in range(int(n_mol_init[r])):
@@ -165,88 +147,26 @@ def build_fwsplit(box, alpha: float, cutoff: float, *,
     axis = int(np.argmax(lengths))
     L_ax = float(lengths[axis])
     lo_ax = float(box.bounds[axis, 0])
-    hi_ax = lo_ax + L_ax
 
-    # Default short-pass cutoff = the LJ cutoff: the Coulomb window then
-    # coincides with the (already-paid) LJ window width while alpha2 -
-    # and with it the far-field grid extent (kmax2 ~ alpha2) - drops by
-    # ~1/0.72. Measured on the flagship bench: rcut2 0.72c -> c is
-    # 1.471M -> 1.576M steps/s (kmax2 32 -> 27, far pass + phase powers
-    # shrink; docs/performance.md). Accuracy is alpha2-invariant by
-    # construction (a2 = _ERFC_DECAY / rc2 keeps erfc(a2 rc2) ~ 5e-10).
+    # Default short-pass cutoff = the LJ cutoff: alpha2 - and with it the
+    # far-field grid extent (kmax2 ~ alpha2) - is then as small as the
+    # LJ pass allows. Accuracy is alpha2-invariant by construction
+    # (a2 = _ERFC_DECAY / rc2 keeps erfc(a2 rc2) ~ 5e-10).
     rc2 = float(rcut2) if rcut2 else max(5.0, float(cutoff))
     a2 = float(alpha2) if alpha2 else _ERFC_DECAY / rc2
     if a2 <= float(alpha):
         return FwSplitSetup(False, "alpha2 <= alpha (split pointless)")
 
-    rcw_c = rc2 + mol_radius + _SLACK
-    rcw_lj = float(cutoff) + mol_radius + _SLACK
-    band = max(rcw_c, rcw_lj)
+    # the cutoff sphere of any footprint atom, measured from its molecule's
+    # COM, must stay inside one periodic image along the longest axis
+    band = max(rc2, float(cutoff)) + mol_radius + _SLACK
     if 2.0 * band >= L_ax:
-        return FwSplitSetup(False, "window would span the whole box")
+        return FwSplitSetup(False, "cutoff sphere would span the whole box")
 
-    # ---- ghost-padded sorted framework table ---------------------------
-    p = pos0[cols]                                     # (Nf, 3)
-    # wrap the sort coordinate into [lo, hi) so ghosts are well defined
-    c_ax = lo_ax + np.mod(p[:, axis] - lo_ax, L_ax)
-    p = p.copy()
-    p[:, axis] = c_ax
-    lo_ghost = c_ax >= hi_ax - band                    # copy shifted -L
-    hi_ghost = c_ax <= lo_ax + band                    # copy shifted +L
-    shift = np.zeros(3)
-    shift[axis] = L_ax
-    pos_all = np.concatenate([p[lo_ghost] - shift, p, p[hi_ghost] + shift])
-    src = np.concatenate([cols[lo_ghost], cols, cols[hi_ghost]])
-    order = np.argsort(pos_all[:, axis], kind="stable")
-    pos_all = pos_all[order]
-    src = src[order]
-
-    NG = pos_all.shape[0]
-    SG = _round_up(NG, 128)
-    # rows x, y, z, q in ONE table: the kernel's dynamic window slice must
-    # be multi-row (single-row slices at lane offsets hit an unsupported
-    # Mosaic broadcast layout)
-    pq_g = np.zeros((4, SG))
-    # pad columns: far away on the sort axis (never inside a window and
-    # r^2 is huge), zero charge, zero eps
-    pq_g[axis, NG:] = hi_ax + band + 1.0e6
-    pq_g[:3, :NG] = pos_all.T
-    pq_g[3, :NG] = site_q[src]
-
-    # grouped-kernel LJ rows vs framework ghost cols: same 8-row (old|new)
-    # ACTIVE-pair block layout as SystemSpec.eps_pair_lj
-    eps_site_fw = eps_cls[:, site_cls[src]]            # (C+1, NG)
-    sig_site_fw = sig_cls[:, site_cls[src]]
-    nA = max(len(active_ids), 1)
-    eps_g = np.zeros((nA * nA * 8, SG))
-    sig2_g = np.zeros((nA * nA * 8, SG))
-    if 2 * Lmax <= 8:
-        for ao, to in enumerate(active_ids):
-            for an, tn in enumerate(active_ids):
-                base = (ao * nA + an) * 8
-                for side, t in ((0, int(to)), (1, int(tn))):
-                    for j, a in enumerate(lj_idx[t][:Lmax]):
-                        row = class_base[t] + a
-                        eps_g[base + side * Lmax + j, :NG] = eps_site_fw[row]
-                        sig2_g[base + side * Lmax + j, :NG] = (
-                            sig_site_fw[row] ** 2)
-
-    nb = SG // 128
-    blockmax = np.full(nb, hi_ax + band + 1.0e6)
-    zg = pq_g[axis]
-    for b in range(nb):
-        blockmax[b] = zg[b * 128:(b + 1) * 128].max()
-
-    # window widths: max over center positions of the column span needed
-    def window_cols(rcw: float) -> int:
-        z0 = np.linspace(lo_ax, hi_ax, 4097)
-        starts = np.searchsorted(blockmax, z0 - rcw, side="right")
-        ends = np.searchsorted(zg[:NG], z0 + rcw, side="right")
-        w = int(np.max(ends - starts * 128))
-        return max(128, _round_up(w, 128))
-
-    WL = min(window_cols(rcw_lj), SG)
-    WC = min(window_cols(rcw_c), SG)
+    # live frozen sites, with the longest-axis coordinate wrapped into the
+    # base cell so each physical site is counted once below
+    p = pos0[cols].copy()                              # (Nf, 3)
+    p[:, axis] = lo_ax + np.mod(p[:, axis] - lo_ax, L_ax)
 
     # ---- far-field coefficient grid -------------------------------------
     import os
@@ -260,20 +180,15 @@ def build_fwsplit(box, alpha: float, cutoff: float, *,
         return FwSplitSetup(False, "far-field grid too large")
 
     Jx, Jy, Jz = int(kmax2[0]) + 1, 2 * int(kmax2[1]) + 1, 2 * int(kmax2[2]) + 1
-    # columns laid out jx*JyB + jy with each jx block 8-row-padded: the
-    # whole-block kernel contracts jz first (MZ = c2 ? pz) and then slices
-    # per-jx SUBLANE blocks of the (Jxy2P, GFK)-oriented result, which
-    # Mosaic only supports at multiple-of-8 offsets; the pad modes carry
-    # coefficient 0 everywhere so every path sums them harmlessly
-    JyB = _round_up(Jy, 8)
-    Jxy = Jx * JyB
+    # columns laid out jx*Jy + jy; the pad modes carry coefficient 0
+    Jxy = Jx * Jy
     Jz2P, Jxy2P = _round_up(Jz, 8), _round_up(Jxy, 128)
     g_jz, g_jxy = np.meshgrid(np.arange(Jz2P), np.arange(Jxy2P), indexing="ij")
     g_jz, g_jxy = g_jz.ravel(), g_jxy.ravel()
-    real = (g_jz < Jz) & (g_jxy < Jxy) & (g_jxy % JyB < Jy)
+    real = (g_jz < Jz) & (g_jxy < Jxy)
     n_int = np.zeros((Jz2P * Jxy2P, 3), dtype=np.int64)
-    n_int[real, 0] = g_jxy[real] // JyB
-    n_int[real, 1] = (g_jxy[real] % JyB) - int(kmax2[1])
+    n_int[real, 0] = g_jxy[real] // Jy
+    n_int[real, 1] = (g_jxy[real] % Jy) - int(kmax2[1])
     n_int[real, 2] = g_jz[real] - int(kmax2[2])
     k_cart = TWOPI * (n_int @ recip_rows)
     ksq = np.sum(k_cart * k_cart, axis=1)
@@ -288,15 +203,10 @@ def build_fwsplit(box, alpha: float, cutoff: float, *,
     coef = np.where(valid, form * ghat, 0.0) * COULOMB_K / box.volume
 
     # framework structure factor on the grid (separable, exact f64)
-    frac = (pos_all @ recip_rows.T)                    # (NG', 3) = n.frac
-    qf = site_q[src][:NG]
-    # ghosts duplicate their originals only OUTSIDE the base cell; the
-    # structure factor must count each PHYSICAL site once -> originals only
-    is_orig = (pos_all[:, axis] >= lo_ax) & (pos_all[:, axis] < hi_ax)
-    phase = np.exp(2j * PI * frac[is_orig])            # (Nf, 3)
-    qs = qf[is_orig]
+    phase = np.exp(2j * PI * (p @ recip_rows.T))       # (Nf, 3)
+    qs = site_q[cols]
     A2_re, A2_im = _amps_on_grid(phase, qs, tuple(int(k) for k in kmax2),
-                                 (Jz2P, Jxy2P), yb=JyB)
+                                 (Jz2P, Jxy2P))
 
     coef2 = coef.reshape(Jz2P, Jxy2P)
     c2_re = coef2 * A2_re
@@ -310,19 +220,14 @@ def build_fwsplit(box, alpha: float, cutoff: float, *,
 
     ex2 = np.zeros((Jx, Jxy2P))
     ey2 = np.zeros((Jy, Jxy2P))
-    gx = np.arange(Jxy) // JyB
-    gy = np.arange(Jxy) % JyB
-    live = gy < Jy
-    ex2[gx[live], np.arange(Jxy)[live]] = 1.0
-    ey2[gy[live], np.arange(Jxy)[live]] = 1.0
+    ex2[np.arange(Jxy) // Jy, np.arange(Jxy)] = 1.0
+    ey2[np.arange(Jxy) % Jy, np.arange(Jxy)] = 1.0
 
     Q_fw = float(np.sum(qs))
     d0 = COULOMB_K * PI * (1.0 / alpha ** 2 - 1.0 / a2 ** 2) * Q_fw / box.volume
 
     return FwSplitSetup(
-        True, "", S_frozen=S_frozen, guest_base=guest_base, axis=axis,
-        SG=SG, pq_g=pq_g, eps_g=eps_g, sig2_g=sig2_g,
-        blockmax=blockmax, WL=WL, WC=WC, rcw_lj=rcw_lj, rcw_c=rcw_c,
+        True, "", S_frozen=S_frozen, guest_base=guest_base,
         alpha2=a2, rcut2=rc2, d0=d0,
         kmax2=tuple(int(k) for k in kmax2), amp2_shape=(Jz2P, Jxy2P),
         c2_re=c2_re, c2_im=c2_im, ex2_sel=ex2, ey2_sel=ey2,

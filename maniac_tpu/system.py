@@ -1,6 +1,6 @@
 """SystemSpec (static) and SimState (dynamic pytree) construction.
 
-TPU-first data model, replacing the reference's global mutable module state
+Array-first data model, replacing the reference's global mutable module state
 (reference: src/simulation_state.f90). All simulation state lives in two
 objects:
 
@@ -13,7 +13,7 @@ Layout: all molecules of all residue types live in ONE flat site array.
 Residue type r occupies a contiguous region of ``cap_r * A_r`` site slots and
 ``cap_r`` molecule slots; active types get padded capacity so insertions are
 in-place writes. A site "class" is the (residue type, atom slot) pair; LJ
-parameters are dense class-pair tables, so the per-move energy kernel is a
+parameters are dense class-pair tables, so the per-move energy pass is a
 single masked dense computation with no per-type unrolling.
 """
 
@@ -53,7 +53,6 @@ def _round_up(x: int, m: int) -> int:
                       "site_midx",
                       "mol_type", "mol_midx", "mol_site_start",
                       "eps_cls", "sig_cls", "eps_site", "sig2_site",
-                      "lj_sel", "q_sel", "eps_pair_lj", "sig2_pair_lj",
                       "type_A", "type_cap", "type_site_base", "type_mol_base",
                       "type_active", "type_activity", "type_self_energy",
                       "type_template_off", "type_q_rows", "type_cls_rows",
@@ -61,20 +60,18 @@ def _round_up(x: int, m: int) -> int:
                       "p_cum", "image_shifts",
                       "res_type_site_base", "res_type_mol_base", "res_cap",
                       "res_H", "res_bounds_lo",
-                      "fw_pq_g", "fw_eps_g", "fw_sig2_g",
-                      "fw_blockmax", "c2_re", "c2_im",
+                      "c2_re", "c2_im",
                       "ex2_sel", "ey2_sel", "alpha2", "rcut2", "fw_d0",
-                      "fw_rcw_lj", "fw_rcw_c", "fw_amp_re", "fw_amp_im",
+                      "fw_amp_re", "fw_amp_im",
                       "tab_erfc", "tab_r6", "tab_r12", "tab_dx"],
          meta_fields=["R", "A_list", "cap_list", "active_list", "A_act",
                       "n_active", "S", "Mtot", "K", "box_kind", "is_triclinic",
                       "dtype_name", "has_reservoir", "res_cap_list",
-                      "kmax_xyz", "amp_shape", "F_pack", "Lmax", "Qmax",
-                      "fw_split", "S_frozen", "guest_base", "fw_SG",
-                      "fw_WL", "fw_WC", "fw_onewin", "fw_axis",
+                      "kmax_xyz", "amp_shape",
+                      "fw_split", "S_frozen", "guest_base",
                       "kmax2_xyz", "amp2_shape",
-                      "site_base_list", "lj_idx_list", "q_idx_list",
-                      "use_table", "gg_cut", "gg_rcut", "force_xla"])
+                      "site_base_list",
+                      "use_table", "gg_cut", "gg_rcut"])
 @dataclass(frozen=True)
 class SystemSpec:
     # box
@@ -84,7 +81,7 @@ class SystemSpec:
     box_diag: jnp.ndarray     # (3,) diagonal lengths (ortho path)
     volume: jnp.ndarray       # scalar
     # ewald: DENSE half-space k-grid in a 2-D (JzP, JxyP) layout - rows are
-    # signed jz (sublane-padded), cols are jx*Jy + jy (lane-padded).
+    # signed jz (padded to 8), cols are jx*Jy + jy (padded to 128).
     # Invalid modes (outside the reference's normalized ellipsoid, the
     # origin, padding) carry weight 0, so amplitudes are a pure separable
     # outer product of per-axis phase tables: two static expansion matmuls
@@ -114,22 +111,10 @@ class SystemSpec:
     eps_cls: jnp.ndarray
     sig_cls: jnp.ndarray
     # class -> flat-site expansions (C+1, S): one contiguous row gather per
-    # footprint atom replaces the two-level (class, class) gather in the hot
-    # pair kernel; sig2_site stores sigma^2
+    # footprint atom replaces the two-level (class, class) gather in the
+    # per-move pair pass; sig2_site stores sigma^2
     eps_site: jnp.ndarray
     sig2_site: jnp.ndarray
-    # Row-compaction machinery for the grouped kernel: most footprint atoms
-    # carry only LJ or only charge, so the grouped pair pass runs LJ on the
-    # eps-active rows and Coulomb on the charged rows separately.
-    # lj_sel/q_sel: (R, Lmax/Qmax, A_act) 0/1 row selectors per type;
-    # eps_pair_lj/sig2_pair_lj: (nA*nA*8, S) ACTIVE-pair tables (nA =
-    # n_active) whose 8-row blocks hold [Lmax rows of t_old | Lmax rows of
-    # t_new | pad]; kernels index them by pid_act = ao*nA + an over active
-    # type ordinals, not by t_old*R + t_new.
-    lj_sel: jnp.ndarray
-    q_sel: jnp.ndarray
-    eps_pair_lj: jnp.ndarray
-    sig2_pair_lj: jnp.ndarray
     # per-residue-type tables (length R, padded with 0 where needed)
     type_A: jnp.ndarray       # (R,) int32 atoms per molecule
     type_cap: jnp.ndarray     # (R,) int32 capacity
@@ -158,14 +143,9 @@ class SystemSpec:
     res_H: jnp.ndarray               # (3,3)
     res_bounds_lo: jnp.ndarray       # (3,)
     # static-framework split tables (physics/fwsplit.py; inert dummies when
-    # fw_split is False). The framework never moves, so its sites live in a
-    # sort-axis-ordered, ghost-padded static table the pair kernels slice
-    # spatially, and its far-field Coulomb response is a precomputed
-    # coefficient grid contracted against footprint phase tables.
-    fw_pq_g: jnp.ndarray      # (4, SG) ghosted sorted framework x/y/z/q rows
-    fw_eps_g: jnp.ndarray     # (R*R*8, SG) grouped-LJ-row layout
-    fw_sig2_g: jnp.ndarray    # (R*R*8, SG)
-    fw_blockmax: jnp.ndarray  # (SG//128,) per-128-col max sort coordinate
+    # fw_split is False). The framework never moves, so its far-field
+    # Coulomb response is a precomputed coefficient grid contracted against
+    # footprint phase tables.
     c2_re: jnp.ndarray        # (Jz2P, Jxy2P) far-field coefficients (K)
     c2_im: jnp.ndarray
     ex2_sel: jnp.ndarray      # (Jx2, Jxy2P)
@@ -173,8 +153,6 @@ class SystemSpec:
     alpha2: jnp.ndarray       # scalar short-range split parameter
     rcut2: jnp.ndarray        # scalar short-range cutoff
     fw_d0: jnp.ndarray        # k=0 far-field term per unit guest charge (K)
-    fw_rcw_lj: jnp.ndarray    # scalar LJ half-window (A)
-    fw_rcw_c: jnp.ndarray     # scalar Coulomb half-window (A)
     fw_amp_re: jnp.ndarray    # (JzP, JxyP) constant framework amplitudes
     fw_amp_im: jnp.ndarray
     # Tabulated pair potentials (opt-in; reference src/tabulated_utils.f90).
@@ -204,37 +182,19 @@ class SystemSpec:
     res_cap_list: tuple
     kmax_xyz: tuple           # (kx, ky, kz)
     amp_shape: tuple          # (JzP, JxyP): 2-D dense-grid layout
-    F_pack: int               # packed footprint rows (2*A_act, sublane-padded)
-    Lmax: int                 # max LJ-active atoms over active types
-    Qmax: int                 # max charged atoms over active types
     fw_split: bool            # static-framework split enabled
     S_frozen: int             # frozen-site prefix length (unaligned)
     guest_base: int           # first mutable site column (128-aligned)
-    fw_SG: int                # ghost table width
-    fw_WL: int                # LJ window cols
-    fw_WC: int                # Coulomb window cols
-    fw_onewin: bool           # LJ and Coulomb windows coincide (same half-
-                              # width AND padded width): kernels may stage
-                              # one shared window slice per (g, side)
-    fw_axis: int              # sort axis
     kmax2_xyz: tuple
     amp2_shape: tuple         # (Jz2P, Jxy2P)
     site_base_list: tuple     # static per-type site bases (128-aligned)
-    lj_idx_list: tuple        # per-type eps-active atom slots (static)
-    q_idx_list: tuple         # per-type charged atom slots (static)
-    use_table: bool           # tabulated pair potentials (XLA path only)
+    use_table: bool           # tabulated pair potentials
     # guest<->guest honest Coulomb cutoff (DIVERGENCES.md #22): when
     # gg_cut, the real-space erfc(alpha r)/r between MOBILE sites is
     # truncated at gg_rcut = ERFC_DECAY/alpha (tail < 1e-6 kcal/mol).
-    # Python floats: trace-time constants baked into the kernels.
+    # Python floats: trace-time constants baked into the program.
     gg_cut: bool
     gg_rcut: float
-    # kernel-dispatch override: True forces the plain XLA step/block path
-    # regardless of MANIAC_PALLAS / backend. Static, so a replace() makes
-    # a distinct trace - this is how the hardware cross-check sentinel
-    # (mc/driver.py sentinel_check) runs replica 0's block through BOTH
-    # paths on-chip.
-    force_xla: bool = False
 
     @property
     def dtype(self):
@@ -252,10 +212,9 @@ class SimState:
     com: jnp.ndarray          # (3, Mtot+1) transposed; last col = pad molecule
     # ABSOLUTE site positions, TRANSPOSED: (3, S). The reference stores COM +
     # per-site offsets (src/simulation_state.f90:115-116); storing absolute
-    # positions makes the hot energy paths gather-free (TPU gathers measured
-    # ~5x the whole step cost), and the (3, S) layout puts the site axis on
-    # the 128-wide vector lanes ((S, 3) arrays use 3 of 128 lanes in every
-    # elementwise pass). Offsets are derived as pos - com where needed.
+    # positions makes the hot energy paths gather-free, and the (3, S)
+    # layout keeps the site axis contiguous (the minor dimension) in every
+    # elementwise pass. Offsets are derived as pos - com where needed.
     pos: jnp.ndarray
     n_mol: jnp.ndarray        # (R+1,) int32; last entry 0 (pad type)
     amp_re: jnp.ndarray       # (K,)
@@ -303,9 +262,9 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
     A_act = max((A_list[r] for r in range(R) if active[r]), default=1)
 
     Mtot = sum(cap_list)
-    # per-type site regions are 128-aligned so the kernels can slice the
-    # mutable (guest) column range statically (pad columns between types
-    # carry the same inert values as the tail padding)
+    # per-type site regions are 128-aligned, so the mutable (guest) column
+    # range starts on an aligned column (pad columns between types carry
+    # the same inert values as the tail padding)
     base_list = []
     s_acc = 0
     for r in range(R):
@@ -419,52 +378,10 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
     res_H = reservoir.box.matrix if has_res else box.matrix
     res_lo = reservoir.box.bounds[:, 0] if has_res else box.bounds[:, 0]
 
-    # ---- class -> site expansions for the hot pair kernel ---------------
+    # ---- class -> site expansions for the per-move pair pass ------------
     eps_site = eps_cls[:, site_cls]       # (C+1, S)
     sig_site = sig_cls[:, site_cls]
     sig2_site = sig_site * sig_site
-
-    F_pack = max(8, _round_up(2 * A_act, 8))  # packed footprint rows
-
-    # row-compaction selectors + compacted LJ tables (grouped kernel)
-    lj_idx = []
-    q_idx = []
-    for r in range(R):
-        A = min(A_list[r], A_act)
-        base_r = class_base[r]
-        lj_idx.append([a for a in range(A)
-                       if np.any(eps_cls[base_r + a] != 0.0)])
-        q_idx.append([a for a in range(A)
-                      if abs(parsed.atom_charges[r][a]) > 1e-10])
-    Lmax = max([len(lj_idx[r]) for r in range(R) if active[r]] + [1])
-    Qmax = max([len(q_idx[r]) for r in range(R) if active[r]] + [1])
-    lj_sel = np.zeros((R, Lmax, A_act))
-    q_sel = np.zeros((R, Qmax, A_act))
-    for r in range(R):
-        for j, a in enumerate(lj_idx[r][:Lmax]):
-            lj_sel[r, j, a] = 1.0
-        for j, a in enumerate(q_idx[r][:Qmax]):
-            q_sel[r, j, a] = 1.0
-    # 8-row (old|new) LJ slabs fit only when each side has <=4 LJ rows;
-    # bigger molecules fall back to the ungrouped kernel (kernels.group_size
-    # gates on Lmax) but the spec must still build. Blocks are indexed by
-    # the ACTIVE-pair id pa = ao*n_active + an (only active types can be a
-    # move's old/new side), which keeps the tables - re-read from HBM by
-    # every kernel program - minimal.
-    nA = max(len(active_ids), 1)
-    eps_pair_lj = np.zeros((nA * nA * 8, S))
-    sig2_pair_lj = np.zeros((nA * nA * 8, S))
-    if 2 * Lmax <= 8:
-        for ao, to in enumerate(active_ids):
-            for an, tn in enumerate(active_ids):
-                base = (ao * nA + an) * 8
-                for side, t in ((0, int(to)), (1, int(tn))):
-                    for j, a in enumerate(lj_idx[t][:Lmax]):
-                        row = class_base[t] + a
-                        dst = base + side * Lmax + j
-                        eps_pair_lj[dst] = eps_site[row]
-                        sig2_pair_lj[dst] = sig2_site[row]
-
 
     # ---- static-framework split (physics/fwsplit.py) --------------------
     import os
@@ -500,9 +417,7 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         amp_shape=tuple(ewald.grid2_shape),
         R=R, active_list=active, A_list=A_list, cap_list=cap_list,
         n_mol_init=parsed.n_mol, type_site_base=type_site_base,
-        site_q=site_q, site_cls=site_cls, pos0=offset0,
-        eps_cls=eps_cls, sig_cls=sig_cls, class_base=class_base,
-        lj_idx=lj_idx, Lmax=Lmax, active_ids=active_ids,
+        site_q=site_q, pos0=offset0,
         mol_radius=mol_rad,
         enabled=fw_mode,
         alpha2=getattr(deck, "fw_alpha2", 0.0),
@@ -533,16 +448,13 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         gg_rcut = ERFC_DECAY / float(ewald.alpha)
     if not fws.enabled:  # inert dummies keep the pytree shape cheap
         fws = FwSplitSetup(
-            False, fws.reason, pq_g=np.zeros((4, 128)),
-            eps_g=np.zeros((8, 128)),
-            sig2_g=np.zeros((8, 128)), blockmax=np.zeros(1),
-            SG=128, WL=128, WC=128,
+            False, fws.reason,
             c2_re=np.zeros((8, 128)), c2_im=np.zeros((8, 128)),
             ex2_sel=np.zeros((1, 128)), ey2_sel=np.zeros((1, 128)),
             kmax2=(0, 0, 0), amp2_shape=(8, 128),
             amp_fw_re=np.zeros(ewald.grid2_shape),
             amp_fw_im=np.zeros(ewald.grid2_shape),
-            guest_base=0, S_frozen=0, axis=2)
+            guest_base=0, S_frozen=0)
 
     # ---- tabulated pair potentials (opt-in) ------------------------------
     # Uniform P+1-point grids over [0, cutoff], built in f64 exactly as the
@@ -582,8 +494,6 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         mol_site_start=jnp.asarray(mol_site_start),
         eps_cls=f(eps_cls), sig_cls=f(sig_cls),
         eps_site=f(eps_site), sig2_site=f(sig2_site),
-        lj_sel=f(lj_sel), q_sel=f(q_sel),
-        eps_pair_lj=f(eps_pair_lj), sig2_pair_lj=f(sig2_pair_lj),
         type_A=jnp.asarray(np.asarray(A_list), dtype=jnp.int32),
         type_cap=jnp.asarray(np.asarray(cap_list), dtype=jnp.int32),
         type_site_base=jnp.asarray(type_site_base),
@@ -599,12 +509,9 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         res_type_mol_base=jnp.asarray(res_mol_base),
         res_cap=jnp.asarray(np.asarray(res_cap_list), dtype=jnp.int32),
         res_H=f(res_H), res_bounds_lo=f(res_lo),
-        fw_pq_g=f(fws.pq_g), fw_eps_g=f(fws.eps_g),
-        fw_sig2_g=f(fws.sig2_g), fw_blockmax=f(fws.blockmax),
         c2_re=f(fws.c2_re), c2_im=f(fws.c2_im),
         ex2_sel=f(fws.ex2_sel), ey2_sel=f(fws.ey2_sel),
         alpha2=f(fws.alpha2), rcut2=f(fws.rcut2), fw_d0=f(fws.d0),
-        fw_rcw_lj=f(fws.rcw_lj), fw_rcw_c=f(fws.rcw_c),
         fw_amp_re=f(fws.amp_fw_re), fw_amp_im=f(fws.amp_fw_im),
         tab_erfc=f(tab_erfc), tab_r6=f(tab_r6), tab_r12=f(tab_r12),
         tab_dx=f(tab_dx),
@@ -615,18 +522,11 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         dtype_name=fdt.name, has_reservoir=has_res,
         res_cap_list=res_cap_list,
         kmax_xyz=tuple(int(k) for k in ewald.kmax),
-        amp_shape=tuple(ewald.grid2_shape), F_pack=F_pack,
-        Lmax=Lmax, Qmax=Qmax,
+        amp_shape=tuple(ewald.grid2_shape),
         fw_split=bool(fws.enabled), S_frozen=int(fws.S_frozen),
-        guest_base=int(fws.guest_base), fw_SG=int(fws.SG),
-        fw_WL=int(fws.WL), fw_WC=int(fws.WC),
-        fw_onewin=bool(fws.enabled and fws.WL == fws.WC
-                       and fws.rcw_lj == fws.rcw_c),
-        fw_axis=int(fws.axis),
+        guest_base=int(fws.guest_base),
         kmax2_xyz=tuple(fws.kmax2), amp2_shape=tuple(fws.amp2_shape),
         site_base_list=tuple(base_list),
-        lj_idx_list=tuple(tuple(x) for x in lj_idx),
-        q_idx_list=tuple(tuple(x) for x in q_idx),
         use_table=use_table, gg_cut=bool(gg_cut), gg_rcut=float(gg_rcut))
 
     n_mol0 = np.zeros(R + 1, dtype=np.int32)

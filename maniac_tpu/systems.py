@@ -284,9 +284,8 @@ def make_lj_gas(outdir, n=32, L=18.0, seed=3, two_species=False, **deck_kw):
 
 def make_lj_chain(outdir, n_atoms=6, n_mol=4, L=18.0, bond=1.2, seed=5,
                   **deck_kw):
-    """Rigid linear chains of n_atoms uncharged LJ sites (one type). With
-    n_atoms > 4 this exceeds the grouped kernel's 8-row LJ slab layout
-    (2*Lmax > 8), exercising the ungrouped fallback."""
+    """Rigid linear chains of n_atoms uncharged LJ sites (one type): a
+    footprint with many LJ-active atoms per molecule."""
     os.makedirs(outdir, exist_ok=True)
     rng = np.random.default_rng(seed)
     atoms = []

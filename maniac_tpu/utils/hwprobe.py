@@ -1,48 +1,37 @@
-"""Hardware matmul-precision evidence, importable (bench.py folds this
-into every benchmark run and emits "hw_precision" in its JSON line;
-tools/precision_probe.py is the standalone CLI).
+"""Hardware matmul-precision evidence, importable (chip_smoke.py runs it on
+the card; tools/precision_probe.py is the standalone CLI).
 
-The round-3 bf16 discovery proved the CPU test suite is blind to an
-entire class of TPU-only corruption: TPU matmuls at DEFAULT precision
-round f32 inputs to bfloat16 (XLA and Mosaic alike), and this engine
-moves POSITIONS through matmuls (one-hot footprint reads, expansions,
-phase contractions; CLAUDE.md invariant #3), so bf16 rounding quantizes
-geometry to ~1e-2 A per accepted rotation. maniac_tpu/__init__.py pins
+The CPU test suite is blind to a whole class of accelerator-only
+corruption: a matmul that rounds its f32 inputs (TF32 on NVIDIA tensor
+cores keeps 10 mantissa bits) quantizes POSITIONS, because this engine
+reads and writes them through dots (one-hot footprint reads, expansions,
+phase contractions; CLAUDE.md invariant #3). maniac_tpu/__init__.py pins
 jax_default_matmul_precision="highest"; these probes verify, on the
-device actually executing, that the pin (and the kernels' explicit
-dot1h/dot3 recovery paths) are intact:
+device actually executing, that the pin is intact:
 
-stage 1  one-hot reads through an XLA dot AND a Pallas-kernel dot must
-         be EXACT under the engine's import-time config. Detects the
-         global pin being lost.
-stage 2  rigid molecules must stay rigid on the CURRENT default
-         dispatch path: a short SPC/E NVT block sequence, then
-         max |d(O-H)| must sit at f32 rounding scale (~1e-6 A random
-         walk; bf16 geometry rounding was 1e-1 per 4 blocks). Detects
-         a lower-precision dot injected anywhere positions flow.
-stage 3  sentinel mini-run: the same block replayed through the XLA
-         scan path from the same pre-block state (identical PRNG
-         stream) must reproduce the kernel's populations and counters
-         exactly (mc/driver.py sentinel_check). Detects kernel-only
-         corruption that stage 2's geometry check can't localize. The
-         fixed seed below is verified flip-free (dot3-vs-highest
-         Metropolis flips are possible at ~1/500 blocks on arbitrary
-         seeds; a fixed seed makes the check deterministic).
+stage 1  one-hot reads through an XLA dot must be EXACT under the
+         engine's import-time config. Detects the global pin being lost.
+stage 2  rigid molecules must stay rigid on the default path: a short
+         SPC/E NVT block sequence, then max |d(O-H)| must sit at f32
+         rounding scale (~1e-6 A random walk). Detects a lower-precision
+         dot injected anywhere positions flow.
 """
 
 from __future__ import annotations
 
-import os
 import tempfile
 
+#: stage 2 bound on max |d(O-H)| - 1 A| (A): f32 rounding random-walks
+#: at ~1e-6; a reduced-precision product deforms by 1e-3..1e-1
+RIGID_TOL = 1e-4
 
-def probe_onehot_exact() -> tuple[bool, str]:
-    """Stage 1: one-hot matmul reads must be bit-exact (XLA + Pallas)."""
+
+def probe_onehot_exact() -> tuple[bool, float]:
+    """Stage 1: one-hot matmul reads must be bit-exact. Returns
+    (ok, max abs error)."""
     import maniac_tpu  # noqa: F401  (applies the engine's precision pin)
-    import jax
     import jax.numpy as jnp
     import numpy as np
-    from jax.experimental import pallas as pl
 
     rng = np.random.default_rng(0)
     x = rng.uniform(-20, 20, (8, 256)).astype(np.float32)
@@ -53,85 +42,35 @@ def probe_onehot_exact() -> tuple[bool, str]:
 
     got = np.asarray(jnp.dot(jnp.asarray(x), jnp.asarray(oh),
                              preferred_element_type=jnp.float32), np.float64)
-    e_xla = np.abs(got - want).max()
-
-    def k(x_ref, oh_ref, o_ref):
-        o_ref[...] = jnp.dot(x_ref[...], oh_ref[...],
-                             preferred_element_type=jnp.float32)
-
-    f = pl.pallas_call(
-        k, out_shape=jax.ShapeDtypeStruct((8, 8), jnp.float32),
-        interpret=jax.devices()[0].platform == "cpu")
-    e_pal = np.abs(np.asarray(f(jnp.asarray(x), jnp.asarray(oh)),
-                              np.float64) - want).max()
-    ok = e_xla == 0.0 and e_pal == 0.0
-    return ok, f"one-hot read error xla={e_xla:.3e} pallas={e_pal:.3e}"
+    err = float(np.abs(got - want).max())
+    return err == 0.0, err
 
 
-def probe_rigid_geometry(blocks: int = 8, path: str | None = None,
-                         sentinel: bool = True) -> tuple[bool, str]:
-    """Stages 2+3: rigid-geometry drift + kernel-vs-XLA sentinel replay."""
+def probe_rigid_geometry(blocks: int = 8, replicas: int = 8,
+                         steps: int = 2000) -> tuple[bool, float]:
+    """Stage 2: rigid-geometry drift after f32 NVT blocks. Returns
+    (ok, max |d(O-H)| deviation in A)."""
     import jax.numpy as jnp
     import numpy as np
 
-    if path:
-        os.environ["MANIAC_PALLAS"] = {"blockg": "blockg", "xla": "0"}[path]
     from .. import load_system
     from ..parallel.replicas import replicate, run_block_replicated
     from ..systems import make_spce_box
 
-    tmp = tempfile.mkdtemp()
-    make_spce_box(tmp, n_water=64, density=0.997, temp=298.0, cutoff=6.0,
-                  tol=1e-5, probs=(0.5, 0.5, 0.0, 0.0), tstep=0.25,
-                  rstep=0.4, recal=True, seed=20260820)
-    sysm = load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
-                       f"{tmp}/parameters.inc", dtype=jnp.float32,
-                       capacity=96)
+    with tempfile.TemporaryDirectory() as tmp:
+        make_spce_box(tmp, n_water=64, density=0.997, temp=298.0,
+                      cutoff=6.0, tol=1e-5, probs=(0.5, 0.5, 0.0, 0.0),
+                      tstep=0.25, rstep=0.4, recal=True, seed=20260820)
+        sysm = load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
+                           f"{tmp}/parameters.inc", dtype=jnp.float32,
+                           capacity=96)
     spec, state = sysm.spec, sysm.state
-    states = replicate(spec, state, 8)
+    states = replicate(spec, state, replicas)
     for _ in range(blocks):
-        states = run_block_replicated(spec, states, 2000, True)
+        states = run_block_replicated(spec, states, steps, True)
     pos = np.asarray(states.pos, np.float64)                # (B, 3, S)
     n = int(np.asarray(states.n_mol)[:, 0].min())
     oh = pos[:, :, [3 * m + h for m in range(n) for h in (1, 2)]]
     oo = pos[:, :, [3 * m for m in range(n) for _ in (1, 2)]]
     dev = float(np.abs(np.linalg.norm(oh - oo, axis=1) - 1.0).max())
-    # f32 rounding random-walk scale is ~1e-6; bf16 geometry rounding was
-    # 1e-1 per 4 blocks. 1e-4 cleanly separates them.
-    ok = dev < 1e-4
-    detail = f"{blocks}x2000 NVT blocks, max |d(O-H)|={dev:.3e} A"
-
-    if sentinel:
-        from ..mc.driver import sentinel_check
-        post = run_block_replicated(spec, states, 2000, True)
-        rep = sentinel_check(spec, states, post, 2000, True)
-        s_ok = (rep["n_mol_mismatch"] == 0 and rep["counter_mismatch"] == 0
-                and rep["pos_max_diff"] < 1e-3)
-        ok = ok and s_ok
-        detail += (f"; sentinel n_mol_mm={rep['n_mol_mismatch']} "
-                   f"ctr_mm={rep['counter_mismatch']} "
-                   f"pos_dmax={rep['pos_max_diff']:.3e}")
-    return ok, detail
-
-
-def hw_precision_check(blocks: int = 4) -> tuple[str, str]:
-    """Run all stages on the current default dispatch path.
-
-    Returns ("pass"|"fail", detail). bench.py calls this after timing
-    (VERDICT r3 #7) so BENCH_r*.json carries the evidence bit.
-    """
-    # the probes exercise the f32 KERNEL path; under jax_enable_x64
-    # (the f64 bench canary) host ints build i64 operands and Mosaic
-    # rejects the kernel's scalar returns ("failed to legalize
-    # func.return (i32, i64, i64)") - probe with x64 off, then restore
-    import jax
-    was_x64 = bool(jax.config.jax_enable_x64)
-    if was_x64:
-        jax.config.update("jax_enable_x64", False)
-    try:
-        ok1, d1 = probe_onehot_exact()
-        ok2, d2 = probe_rigid_geometry(blocks=blocks)
-    finally:
-        if was_x64:
-            jax.config.update("jax_enable_x64", True)
-    return ("pass" if (ok1 and ok2) else "fail"), f"{d1}; {d2}"
+    return dev < RIGID_TOL, dev

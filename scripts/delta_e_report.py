@@ -4,7 +4,7 @@
 BASELINE.json sets a per-move dE parity bar of 1e-6 kcal/mol vs the Fortran
 reference. The float64 engine meets it by construction (identical formulas
 evaluated in f64; the absolute anchors live in tests/test_oracle.py). The
-TPU flagship runs float32, so this script measures what f32 actually costs:
+GPU flagship runs float32, so this script measures what f32 actually costs:
 it advances an f32 chain on the flagship system and, for every accepted
 move, compares the engine's running dE against an exact f64 recomputation
 of the total energy before/after the move.
@@ -90,7 +90,7 @@ def measure(n_steps: int = 400, seed: int = 0, verbose: bool = True):
                   f"{k:28s} {v}")
         print("# BASELINE.json bar (f64 vs Fortran): 1e-6 kcal/mol - met by")
         print("# the f64 engine by construction; f32 trades ~1e-4 kcal/mol")
-        print("# per-move precision for TPU throughput (drift bounded by")
+        print("# per-move precision of f32 throughput runs (drift bounded by")
         print("# per-block amplitude resynthesis, DIVERGENCES.md #13).")
     return report
 

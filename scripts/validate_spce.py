@@ -10,7 +10,7 @@ by TI; Quintana & Haymet CPL 189 (1992) and later Widom studies agree
 within ~1 kJ/mol; our no-LJ-tail reference semantics adds ~+0.2
 kcal/mol). PASS band used here: -7.5 .. -6.3 kcal/mol.
 
-Usage (TPU ~2 min; CPU ~15 min at the default sizes):
+Usage (CPU ~15 min at the default sizes):
     python scripts/validate_spce.py [--replicas 64] [--blocks 30]
                                     [--steps 2000] [--trials 256]
                                     [--waters 128] [--dtype f32]

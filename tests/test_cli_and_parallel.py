@@ -3,6 +3,7 @@
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -145,6 +146,34 @@ def test_sharded_block_hlo_has_no_collectives(lj_system, tmp_path, shape):
         txt2 = jax.jit(gather_mean_population, static_argnums=(1,)).lower(
             states, spec.R).compile().as_text()
     assert "all-reduce" in txt2
+
+
+def test_sharded_grouped_resync_hlo_has_no_collectives(tmp_path,
+                                                      monkeypatch):
+    """The fused block + resync with the resynthesis walked in groups
+    (the device-memory bound) stays collective-free when the replica axis
+    is sharded: each group takes replicas strided across the whole batch,
+    so every group keeps the batch sharding."""
+    from maniac_tpu.mc import driver
+    from maniac_tpu.systems import tiny_system
+    deck, data, inc, res = tiny_system(str(tmp_path), "flagship")
+    sysm = load_system(deck, data, inc, capacity=16, reservoir_file=res,
+                       dtype=jnp.float32)
+    spec = sysm.spec
+    B = 32
+    limit = 4 * 8 * driver.resync_bytes_per_replica(spec)
+    assert driver.resync_group_size(spec, B, limit) == 8
+    monkeypatch.setattr(driver, "device_bytes_limit", lambda: limit)
+    mesh = make_mesh(8)
+    states = shard_replicas(mesh, replicate(spec, sysm.state, B))
+    spec_r = replicate_spec(mesh, spec)
+    with mesh:
+        txt = jax.jit(run_block_replicated.__wrapped__,
+                      static_argnums=(2, 3, 4)).lower(
+            spec_r, states, 4, False, True).compile().as_text()
+    for op in ("all-reduce", "all-gather", "collective-permute",
+               "all-to-all", "reduce-scatter"):
+        assert op not in txt, f"grouped resync program contains {op}"
 
 
 def test_isotherm_sweep(tmp_path):

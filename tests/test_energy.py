@@ -155,7 +155,7 @@ def test_intra_matches_direct(tmp_path):
 
 
 def test_amp_delta_separable_matches_direct(tmp_path):
-    """MXU one-hot phase expansion == direct cos/sin over (A,K)."""
+    """Separable one-hot phase expansion == direct cos/sin over (A,K)."""
     import jax
     from maniac_tpu.physics.energy import amp_delta, amp_delta_direct
     make_water_box(str(tmp_path), n_water=4, L=12.0, cutoff=5.0, tol=1e-5)
@@ -174,7 +174,7 @@ def test_amp_delta_separable_matches_direct(tmp_path):
 
 
 def test_alpha_override_invariance(tmp_path):
-    """ewald_alpha (TPU-native deck extension) re-balances the Ewald split;
+    """ewald_alpha (deck extension) re-balances the Ewald split;
     the converged Coulomb total must be invariant."""
     totals = []
     for i, alpha in enumerate((0.0, 0.45, 0.6)):   # 0 = reference formula

@@ -9,6 +9,7 @@ structure factors must equal a from-scratch recomputation.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from maniac_tpu import load_system
 from maniac_tpu.mc.driver import drift_report, run_block
@@ -295,3 +296,39 @@ def test_uniform_rotation_statistics():
     assert np.abs(cov - np.eye(3) / 3.0).max() < 0.02
     # Haar measure: E[trace R] = 0 (angle density (1-cos)/pi)
     assert abs(np.trace(R, axis1=1, axis2=2).mean()) < 0.03
+
+
+def test_spec_builds_with_many_lj_sites(tmp_path):
+    """A molecule with six LJ-active atoms must load and run the full move
+    set with exact f64 bookkeeping==recompute."""
+    from maniac_tpu.systems import make_lj_chain
+    from maniac_tpu.mc.driver import initialize_state
+
+    make_lj_chain(str(tmp_path), n_atoms=6, n_mol=4, L=18.0, cutoff=6.0,
+                  fugacity=50.0, probs=(0.3, 0.2, 0.5, 0.0))
+    sysm = _load(str(tmp_path), dtype=jnp.float64)
+    assert sysm.spec.A_act == 6
+
+    state = initialize_state(sysm.spec, sysm.state)
+    state = run_block(sysm.spec, state, 120, True)
+    assert drift_report(sysm.spec, state)["drift_K"] < 1e-6
+
+
+@pytest.mark.parametrize("fits, want", [
+    (None, 8),      # no device limit reported (CPU): one vmapped pass
+    (1000, 8),      # a budget far above the need: one pass
+    (3, 2),         # room for 3 replicas: largest divisor of 8 that fits
+    (0, 1),         # not even one replica fits the budget: one at a time
+])
+def test_resync_group_size(tmp_path, fits, want):
+    """The replicated resynthesis walks replicas in the largest group of
+    a divisor size whose temporaries fit a quarter of the device limit."""
+    from maniac_tpu.mc.driver import (resync_bytes_per_replica,
+                                      resync_group_size)
+    make_water_box(str(tmp_path), n_water=4, L=12.0, cutoff=5.0, tol=1e-3)
+    spec = _load(str(tmp_path), dtype=jnp.float32).spec
+    per = resync_bytes_per_replica(spec)
+    assert per > 0
+    # the budget is a quarter of the limit: room for `fits` replicas
+    limit = None if fits is None else 4 * per * fits
+    assert resync_group_size(spec, 8, limit) == want

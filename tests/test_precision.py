@@ -2,7 +2,7 @@
 
 BASELINE.json's 1e-6 kcal/mol per-move dE bar applies to the f64 engine
 (identical formulas to the reference, evaluated in f64; absolute anchors in
-tests/test_oracle.py). scripts/delta_e_report.py measures what the f32 TPU
+tests/test_oracle.py). scripts/delta_e_report.py measures what the f32
 path costs; this test pins that envelope so precision regressions are
 caught. Measured on 2026-08-16: max 8.5e-5, mean 3.3e-5 kcal/mol over the
 flagship chemistry (recorded in BASELINE.md).
@@ -61,3 +61,19 @@ def test_f64_per_move_delta_e_exact(tmp_path):
         e_prev_run = e_run
     assert n_acc > 10
     assert worst * KB_KCALMOL < 1e-6, worst * KB_KCALMOL
+
+
+def test_highest_matmul_precision_pin():
+    """Importing the engine pins full-f32 matmul products (positions flow
+    through dots; a TF32/bf16 product would deform rigid molecules)."""
+    import jax
+
+    import maniac_tpu  # noqa: F401
+    assert jax.config.jax_default_matmul_precision == "highest"
+
+
+def test_onehot_probe_exact_on_xla():
+    """hwprobe stage 1: one-hot matmul reads are bit-exact."""
+    from maniac_tpu.utils.hwprobe import probe_onehot_exact
+    ok, err = probe_onehot_exact()
+    assert ok and err == 0.0

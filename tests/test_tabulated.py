@@ -10,7 +10,7 @@ Here ``use_table`` IS a deck keyword. These tests pin:
   src/tabulated_utils.f90:104-117),
 * the tabulated pair energy against an independent numpy brute force,
 * the bookkeeping == recompute invariant under GCMC moves, and
-* that the TPU kernels refuse tabulated specs (XLA path only).
+* that a forced framework split is refused with tables on.
 """
 
 import numpy as np
@@ -21,7 +21,6 @@ import jax.numpy as jnp
 from maniac_tpu import load_system
 from maniac_tpu.constants import COULOMB_K
 from maniac_tpu.io.deck import parse_deck
-from maniac_tpu.kernels import use_blockg, use_pair_kernel
 from maniac_tpu.physics.energy import tab_lookup
 from maniac_tpu.system import E_COUL, E_LJ
 from maniac_tpu.utils.errors import ManiacError
@@ -130,17 +129,6 @@ def test_tabulated_gcmc_consistency(tmp_path):
     assert float(jnp.max(jnp.abs(state.amp_re - amp_re))) < 1e-7
     c = np.asarray(state.counters)
     assert c[0].sum() == 60 and c[1].sum() > 0
-
-
-def test_tabulated_disables_kernels(tmp_path, monkeypatch):
-    make_water_box(str(tmp_path), n_water=4, L=12.0, cutoff=5.0, tol=1e-3,
-                   use_table="true")
-    sysm = _load(str(tmp_path), dtype=jnp.float32,
-                 compute_initial_energy=False)
-    monkeypatch.setenv("MANIAC_PALLAS", "blockg")
-    assert not use_blockg(sysm.spec)
-    monkeypatch.setenv("MANIAC_PALLAS", "1")
-    assert not use_pair_kernel(sysm.spec)
 
 
 def test_use_table_rejects_forced_framework_split(tmp_path):

@@ -112,7 +112,7 @@ def test_triclinic_recip_brute_force(tmp_path):
 
 def test_triclinic_move_consistency(tmp_path):
     """bookkeeping == recompute through the full move mix on a tilted box
-    (runs the XLA path: triclinic dispatches away from the Pallas kernel)."""
+    (27-image minimum-image path)."""
     make_triclinic_water(str(tmp_path), n_water=6, L=14.0,
                          tilt=(2.0, 1.2, 0.8), cutoff=5.0, tol=1e-4,
                          probs=(0.3, 0.2, 0.5, 0.0), fugacity=5000.0)

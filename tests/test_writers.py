@@ -88,7 +88,7 @@ def test_log_status_rows_parse(_run):
 
 
 def test_f32_energy_rows_exact(tmp_path):
-    """TPU-shaped (f32) runs must report EXACT energies every block like the
+    """f32 runs must report EXACT energies every block like the
     reference (src/write_utils.f90:94-188), not the wandering f32 running
     totals (DIVERGENCES.md #13): the final energy.dat row must match a
     from-scratch f64 recompute of the written restart configuration."""

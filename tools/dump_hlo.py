@@ -1,38 +1,36 @@
 #!/usr/bin/env python
-"""Dump compiled HLO of the block step and grep interesting ops."""
+"""Dump the compiled HLO of the flagship block program and grep it.
+
+    PROF_B=1024 HLO_GREP='fusion|while' python tools/dump_hlo.py [out.txt]
+
+The HLO is what XLA compiled for the default device, which the first
+line names.
+"""
 import os
 import sys
-import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-import jax.numpy as jnp
-
 
 def main():
+    import jax.numpy as jnp
+
+    import bench
+    from maniac_tpu.parallel.replicas import replicate, run_block_replicated
+    from maniac_tpu.utils.devinfo import device_label
+
     B = int(os.environ.get("PROF_B", "1024"))
     NS = 50
-    from maniac_tpu import load_system
-    from maniac_tpu.systems import make_zif_like
-    from maniac_tpu.parallel.replicas import replicate, run_block_replicated
-
-    with tempfile.TemporaryDirectory() as tmp:
-        make_zif_like(tmp, n_cells=6, a=5.66, n_water=32, fugacity=30.0)
-        sysm = load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
-                           f"{tmp}/parameters.inc", dtype=jnp.float32,
-                           capacity=512)
-    spec, state = sysm.spec, sysm.state
-    states = replicate(spec, state, B)
-
-    lowered = jax.jit(run_block_replicated, static_argnums=(2, 3)).lower(
-        spec, states, NS, False)
-    txt = lowered.compile().as_text()
-    with open("/tmp/step_hlo.txt", "w") as f:
+    out = sys.argv[1] if len(sys.argv) > 1 else "step_hlo.txt"
+    sysm = bench.load_regime("zif", jnp.float32)
+    spec = sysm.spec
+    states = replicate(spec, sysm.state, B)
+    txt = run_block_replicated.lower(spec, states, NS, False,
+                                     True).compile().as_text()
+    with open(out, "w") as f:
         f.write(txt)
-    pats = [p for p in os.environ.get(
-        "HLO_GREP", "copy.669|closed_call.27|closed_call.28|"
-        "select_select_fusion.3|compare_reduce_fusion.7").split("|")]
+    print(f"# device={device_label()} B={B} steps={NS} -> {out}")
+    pats = os.environ.get("HLO_GREP", "custom-call|all-reduce").split("|")
     for line in txt.splitlines():
         if any(p in line for p in pats):
             print(line.strip()[:400])

@@ -24,7 +24,7 @@ import sys
 from pathlib import Path
 
 DEFAULT_PATHS = ["maniac_tpu", "tests", "tools", "scripts", "examples",
-                 "bench.py", "__graft_entry__.py"]
+                 "bench.py", "chip_smoke.py", "__graft_entry__.py"]
 
 
 def _iter_files(paths):
