@@ -4,9 +4,15 @@ ZIF-8-scale water-adsorption system (BASELINE.json flagship config), with
 vmapped replica chains.
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline",
-"device": {"platform", "kind", "count"}}. Per-phase timings and the card's
-name and power limit go to stderr. Exits non-zero without printing a
-result when JAX finds no GPU: a CPU number is not a device number.
+"hw_precision", "device": {"platform", "kind", "count"}}. Per-phase timings
+and the card's name and power limit go to stderr. Exits non-zero without
+printing a result when JAX finds no GPU: a CPU number is not a device
+number.
+
+After timing, the run re-proves on the device it measured that matmul
+products are full f32 (utils/hwprobe.py stages 1 and 2: one-hot reads
+exact, rigid O-H kept); "hw_precision" carries both readings, and a failed
+probe makes the exit code non-zero.
 
 The reference publishes no throughput numbers (BASELINE.md), so vs_baseline
 is measured against the north-star target of 1e6 GCMC steps/sec/chip.
@@ -74,6 +80,19 @@ def load_regime(system: str, dtype, capacity: int | None = None):
                            reservoir_file=res_file)
 
 
+def precision_evidence(blocks: int = 4, replicas: int = 8,
+                       steps: int = 2000) -> dict:
+    """hwprobe stages 1 and 2 on the default device (their own f32
+    programs, run after timing so their compiles stay out of it)."""
+    from maniac_tpu.utils.hwprobe import (RIGID_TOL, probe_onehot_exact,
+                                          probe_rigid_geometry)
+
+    ok1, err = probe_onehot_exact()
+    ok2, dev = probe_rigid_geometry(blocks, replicas, steps)
+    return {"ok": bool(ok1 and ok2), "onehot_err": err,
+            "rigid_dOH_A": dev, "rigid_tol_A": RIGID_TOL}
+
+
 def main() -> int:
     import jax
 
@@ -138,6 +157,11 @@ def main() -> int:
         f"# steps={total_steps:,} elapsed={elapsed:.3f}s mean_N="
         f"{float(np.asarray(states.n_mol)[:, :spec.R].sum(1).mean()):.1f}\n")
 
+    t0 = time.perf_counter()
+    hw = precision_evidence()
+    sys.stderr.write(f"# hw_precision={hw} "
+                     f"[{time.perf_counter() - t0:.1f}s]\n")
+
     metric = ("gcmc_steps_per_sec_per_chip_zif8_h2o" if system == "zif"
               else f"gcmc_steps_per_sec_per_chip_{system}")
     print(json.dumps({
@@ -145,9 +169,10 @@ def main() -> int:
         "value": rate,
         "unit": "MC steps/s/chip",
         "vs_baseline": rate / TARGET_STEPS_PER_SEC,
+        "hw_precision": hw,
         "device": dev,
     }))
-    return 0
+    return 0 if hw["ok"] else 1
 
 
 if __name__ == "__main__":

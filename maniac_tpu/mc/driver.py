@@ -26,10 +26,9 @@ from ..constants import (MAX_ROTATION_ANGLE, MAX_TRANSLATION_STEP,
                          MIN_ROTATION_ANGLE, MIN_TRANSLATION_STEP,
                          MIN_TRIALS_FOR_RECALIBRATION, TARGET_ACCEPTANCE,
                          TOL_ACCEPTANCE, TYPE_ROTATION, TYPE_TRANSLATION)
-from ..physics.energy import (_chunk_for, active_site_mask, full_amplitudes,
+from ..physics.energy import (active_site_mask, full_amplitudes,
                               recip_energy, site_positions, system_energy)
 from ..system import E_RECIP, E_TOT, SimState, SystemSpec
-from ..utils.devinfo import device_bytes_limit
 
 
 def initialize_state(spec: SystemSpec, state: SimState) -> SimState:
@@ -139,54 +138,12 @@ def refresh_reported_energy(spec: SystemSpec, states: SimState) -> SimState:
         amp_im=states.amp_im.at[0].set(st0.amp_im))
 
 
-def resync_bytes_per_replica(spec: SystemSpec) -> int:
-    """Device temporaries of one replica's amplitude resynthesis: the
-    (chunk, JxyP) expansion products of full_amplitudes' scan body (x/y
-    tables and their complex product, re and im) plus the (JzP, JxyP)
-    carries and partial sums."""
-    JzP, JxyP = spec.amp_shape
-    chunk = _chunk_for(spec.S - (spec.guest_base if spec.fw_split else 0))
-    return jnp.dtype(spec.dtype).itemsize * (6 * chunk * JxyP
-                                             + 4 * JzP * JxyP)
-
-
-def resync_group_size(spec: SystemSpec, n_replicas: int,
-                      bytes_limit: int | None) -> int:
-    """Replicas resynthesized at once: all of them unless their
-    temporaries would take more than a quarter of the device's memory,
-    else the largest divisor of n_replicas that fits that budget."""
-    if bytes_limit is None:
-        return n_replicas
-    g = max(1, min(n_replicas,
-                   (bytes_limit // 4) // resync_bytes_per_replica(spec)))
-    while n_replicas % g:
-        g -= 1
-    return g
-
-
 def resync_replicated_body(spec: SystemSpec, states: SimState) -> SimState:
     """Trace-time body of the replicated resync (shared by the standalone
-    jit below and run_block_replicated's fused tail).
-
-    Vmapped over all replicas, the resynthesis temporaries grow with the
-    batch; when they would not fit (resync_group_size) the replicas are
-    walked in groups with lax.map. Group i holds replicas i, i + n, i + 2n,
-    ... (n groups), so a batch axis sharded in contiguous blocks stays
-    sharded inside every group and the program needs no collectives."""
-    B = states.n_mol.shape[0]
-    G = resync_group_size(spec, B, device_bytes_limit())
-
-    def one(st):
-        return jax.vmap(lambda s: resync_amplitudes_body(spec, s))(st)
-
-    if G == B:
-        return one(states)
-    n = B // G
-    grouped = jax.tree_util.tree_map(
-        lambda x: x.reshape(G, n, *x.shape[1:]).swapaxes(0, 1), states)
-    out = jax.lax.map(one, grouped)
-    return jax.tree_util.tree_map(
-        lambda x: x.swapaxes(0, 1).reshape(B, *x.shape[2:]), out)
+    jit below and run_block_replicated's fused tail): the per-replica
+    resynthesis vmapped over the batch. Its temporaries grow with the
+    batch; chip_smoke.py's compile phase prints them per regime."""
+    return jax.vmap(lambda s: resync_amplitudes_body(spec, s))(states)
 
 
 @jax.jit

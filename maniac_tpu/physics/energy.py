@@ -311,9 +311,8 @@ def recip_energy_delta(spec: SystemSpec, amp_re, amp_im, d_re, d_im):
 def _chunk_for(S: int) -> int:
     """Site-axis chunk for full recomputes: the largest multiple of 8 up
     to 1024 that divides S. Bigger chunks = fewer, larger contractions in
-    full_amplitudes (and larger (chunk, JxyP) temporaries, which
-    mc/driver.resync_bytes_per_replica counts); the chunk is a
-    contraction dimension so any divisor works."""
+    full_amplitudes (and larger (chunk, JxyP) temporaries); the chunk is
+    a contraction dimension so any divisor works."""
     best = 8
     for c in range(8, 1025, 8):
         if S % c == 0:

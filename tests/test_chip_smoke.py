@@ -59,6 +59,14 @@ def test_bench_refuses_cpu(capsys):
     assert _no_ok_line(capsys.readouterr().out)
 
 
+def test_bench_precision_evidence():
+    """The post-timing check bench.py puts in its result line: one-hot
+    reads exact and rigid O-H kept, here on a short run."""
+    hw = bench.precision_evidence(blocks=1, replicas=2, steps=50)
+    assert hw["ok"] and hw["onehot_err"] == 0.0
+    assert hw["rigid_dOH_A"] < hw["rigid_tol_A"]
+
+
 def test_phase_compile_fit(capsys):
     out = chip_smoke.phase_compile_fit({s: _tiny(s) for s in SHAPES},
                                        replicas=4, steps=8)

@@ -148,32 +148,25 @@ def test_sharded_block_hlo_has_no_collectives(lj_system, tmp_path, shape):
     assert "all-reduce" in txt2
 
 
-def test_sharded_grouped_resync_hlo_has_no_collectives(tmp_path,
-                                                      monkeypatch):
-    """The fused block + resync with the resynthesis walked in groups
-    (the device-memory bound) stays collective-free when the replica axis
-    is sharded: each group takes replicas strided across the whole batch,
-    so every group keeps the batch sharding."""
-    from maniac_tpu.mc import driver
+def test_sharded_fused_resync_hlo_has_no_collectives(tmp_path):
+    """The f32 block with its per-block amplitude resync fused into the
+    tail (resync=True, what bench.py and the CLI run) stays
+    collective-free when the replica axis is sharded: the vmapped
+    resynthesis is per replica like the steps before it."""
     from maniac_tpu.systems import tiny_system
     deck, data, inc, res = tiny_system(str(tmp_path), "flagship")
     sysm = load_system(deck, data, inc, capacity=16, reservoir_file=res,
                        dtype=jnp.float32)
     spec = sysm.spec
-    B = 32
-    limit = 4 * 8 * driver.resync_bytes_per_replica(spec)
-    assert driver.resync_group_size(spec, B, limit) == 8
-    monkeypatch.setattr(driver, "device_bytes_limit", lambda: limit)
     mesh = make_mesh(8)
-    states = shard_replicas(mesh, replicate(spec, sysm.state, B))
+    states = shard_replicas(mesh, replicate(spec, sysm.state, 16))
     spec_r = replicate_spec(mesh, spec)
     with mesh:
-        txt = jax.jit(run_block_replicated.__wrapped__,
-                      static_argnums=(2, 3, 4)).lower(
-            spec_r, states, 4, False, True).compile().as_text()
+        txt = run_block_replicated.lower(spec_r, states, 4, False,
+                                         True).compile().as_text()
     for op in ("all-reduce", "all-gather", "collective-permute",
                "all-to-all", "reduce-scatter"):
-        assert op not in txt, f"grouped resync program contains {op}"
+        assert op not in txt, f"fused resync program contains {op}"
 
 
 def test_isotherm_sweep(tmp_path):

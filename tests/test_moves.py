@@ -9,7 +9,6 @@ structure factors must equal a from-scratch recomputation.
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from maniac_tpu import load_system
 from maniac_tpu.mc.driver import drift_report, run_block
@@ -312,23 +311,3 @@ def test_spec_builds_with_many_lj_sites(tmp_path):
     state = initialize_state(sysm.spec, sysm.state)
     state = run_block(sysm.spec, state, 120, True)
     assert drift_report(sysm.spec, state)["drift_K"] < 1e-6
-
-
-@pytest.mark.parametrize("fits, want", [
-    (None, 8),      # no device limit reported (CPU): one vmapped pass
-    (1000, 8),      # a budget far above the need: one pass
-    (3, 2),         # room for 3 replicas: largest divisor of 8 that fits
-    (0, 1),         # not even one replica fits the budget: one at a time
-])
-def test_resync_group_size(tmp_path, fits, want):
-    """The replicated resynthesis walks replicas in the largest group of
-    a divisor size whose temporaries fit a quarter of the device limit."""
-    from maniac_tpu.mc.driver import (resync_bytes_per_replica,
-                                      resync_group_size)
-    make_water_box(str(tmp_path), n_water=4, L=12.0, cutoff=5.0, tol=1e-3)
-    spec = _load(str(tmp_path), dtype=jnp.float32).spec
-    per = resync_bytes_per_replica(spec)
-    assert per > 0
-    # the budget is a quarter of the limit: room for `fits` replicas
-    limit = None if fits is None else 4 * per * fits
-    assert resync_group_size(spec, 8, limit) == want

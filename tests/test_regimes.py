@@ -4,8 +4,8 @@ every execution regime the engine serves.
 run_block_replicated vmaps block_body over the replica axis; run_block
 runs one chain. With the same keys both must take the same decisions,
 and the bookkeeping must equal a from-scratch recompute (f64). The f32
-per-block resynthesis, when it walks the replicas in groups (the memory
-bound on a device), must reproduce the per-replica resynthesis.
+per-block resynthesis, vmapped over the replicas, must reproduce the
+per-replica resynthesis.
 """
 
 import jax
@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 
 from maniac_tpu import load_system
-from maniac_tpu.mc import driver
-from maniac_tpu.mc.driver import drift_report, resync_amplitudes, run_block
+from maniac_tpu.mc.driver import (drift_report, resync_amplitudes,
+                                  resync_amplitudes_replicated, run_block)
+from maniac_tpu.physics.energy import recip_energy
 from maniac_tpu.parallel.replicas import replicate, run_block_replicated
-from maniac_tpu.system import E_RECIP
+from maniac_tpu.system import E_RECIP, E_TOT
 from maniac_tpu import systems
 
 B = 4
@@ -140,20 +141,20 @@ def test_replicated_block_matches_single_chain(tmp_path, regime):
 
 
 @pytest.mark.parametrize("regime", list(REGIMES))
-def test_grouped_resync_matches_per_replica(tmp_path, monkeypatch, regime):
-    """The f32 replicated resynthesis forced into groups of 2 reproduces
-    resync_amplitudes run on each replica alone."""
+def test_replicated_resync_matches_per_replica(tmp_path, regime):
+    """The f32 replicated resynthesis (the vmapped body run_block_replicated
+    fuses into its tail) reproduces resync_amplitudes run on each replica
+    alone, keeps positions and the non-reciprocal running energy, and
+    leaves E_RECIP equal to recip_energy of the new amplitudes."""
     sysm = _load(tmp_path, regime, jnp.float32)
     spec = sysm.spec
     states = run_block_replicated(spec, replicate(spec, sysm.state, B), 20,
                                   False)
-    limit = 4 * 2 * driver.resync_bytes_per_replica(spec)
-    assert driver.resync_group_size(spec, B, limit) == 2
-    monkeypatch.setattr(driver, "device_bytes_limit", lambda: limit)
-    out = jax.jit(lambda st: driver.resync_replicated_body(spec, st))(states)
+    out = resync_amplitudes_replicated(spec, states)
     scale = float(np.abs(np.asarray(out.amp_re)).max()) + 1.0
     for b in range(B):
-        one = resync_amplitudes(spec, _row(states, b))
+        before = _row(states, b)
+        one = resync_amplitudes(spec, before)
         got = _row(out, b)
         for leaf in ("amp_re", "amp_im"):
             np.testing.assert_allclose(np.asarray(getattr(got, leaf)),
@@ -162,5 +163,13 @@ def test_grouped_resync_matches_per_replica(tmp_path, monkeypatch, regime):
         e_got = float(got.energy[E_RECIP])
         e_one = float(one.energy[E_RECIP])
         assert abs(e_got - e_one) <= 1e-4 * max(1.0, abs(e_one))
+        e_amp = float(recip_energy(spec, got.amp_re, got.amp_im))
+        assert abs(e_got - e_amp) <= 1e-4 * max(1.0, abs(e_amp))
+        rest_got = float(got.energy[E_TOT] - got.energy[E_RECIP])
+        rest_before = float(before.energy[E_TOT] - before.energy[E_RECIP])
+        assert abs(rest_got - rest_before) <= 1e-4 * max(1.0,
+                                                         abs(rest_before))
         np.testing.assert_array_equal(np.asarray(got.pos),
-                                      np.asarray(_row(states, b).pos))
+                                      np.asarray(before.pos))
+        np.testing.assert_array_equal(np.asarray(got.n_mol),
+                                      np.asarray(before.n_mol))
